@@ -1,8 +1,8 @@
 """North-star accuracy measurement: engines vs f64 golden at HERA-331 scale.
 
-Measures the relative visibility error of the TPU engines (XLA U.W and
-Pallas NUDFT) against the direct float64 golden at the BASELINE.json
-north-star problem size: HERA-331 unique baselines (incl. the longest,
+Measures the relative visibility error of the direct engines (XLA U.W and
+the Pallas kernel where it compiles) against the direct float64 golden at
+the north-star problem size: HERA-331 unique baselines (incl. the longest,
 ~876 m, where two-float phase headroom is worst), 1024 channels,
 nside-256 sky (786,432 pixels; ~half above horizon carry flux).
 
@@ -12,7 +12,8 @@ is what controls phase-cycle count and therefore precision. The engines
 are run at full source count so f32 accumulation error at true scale is
 included.
 
-Usage: python benchmarks/accuracy_northstar.py [--nbl-slice 8]
+Usage (on an NVIDIA GPU; the Pallas kernel compiles only there):
+       python benchmarks/accuracy_northstar.py [--nbl-slice 8]
            [--nside 256] [--nchan 1024]
 Prints one JSON line per engine with max relative error (scaled by
 max |V_golden|) and the worst per-element relative error among
@@ -25,6 +26,7 @@ import argparse
 import functools
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -141,14 +143,12 @@ def golden_slice(prob, amps_np, bl_idx, chunk=2048):
     return V, time.perf_counter() - t0, int(S)
 
 
-def run_engines(prob, sh, sl, amps_np, bl_idx, nchan, recur=None,
-                anchor_q=8, anchor_w=None):
+def run_engines(prob, sh, sl, amps_np, bl_idx, nchan):
     import jax
     import jax.numpy as jnp
     from prisim_tpu import twofloat as tf
     from prisim_tpu.engine.nudft import nudft_visibilities
-    from prisim_tpu.engine.pallas_nudft import nudft_pallas, \
-        pallas_available
+    from prisim_tpu.engine.pallas_nudft import nudft_pallas
 
     inst = prob["inst"]
     pch, pcl = tf.split_f64(prob["pc"])
@@ -161,14 +161,11 @@ def run_engines(prob, sh, sl, amps_np, bl_idx, nchan, recur=None,
     out = {}
     timing = {}
 
-    # Pallas first (the production kernel), each engine with a donated
-    # fresh copy of amps — at nside-256 the (S, C) array is 3.2 GB and
-    # two engines' working sets together exceed the 16 GB HBM.
+    # each engine with a donated fresh copy of amps (3.2 GB at
+    # nside 256)
     @functools.partial(jax.jit, donate_argnums=(2,))
     def pal(seh, sel, amps):
-        v = nudft_pallas(seh, sel, blh, bll, amps, gs, nchan,
-                         recur=recur, anchor_q=anchor_q,
-                         anchor_w=anchor_w)
+        v = nudft_pallas(seh, sel, blh, bll, amps, gs, nchan)
         return jnp.real(v), jnp.imag(v)
 
     @functools.partial(jax.jit, donate_argnums=(2,))
@@ -177,13 +174,11 @@ def run_engines(prob, sh, sl, amps_np, bl_idx, nchan, recur=None,
                                src_block=4096)
         return jnp.real(v), jnp.imag(v)
 
-    if pallas_available():
-        t0 = time.perf_counter()
-        vr, vi = jax.block_until_ready(pal(seh, sel,
-                                           jnp.asarray(amps_np)))
-        timing["pallas"] = time.perf_counter() - t0
-        out["pallas"] = np.asarray(vr) + 1j * np.asarray(vi)
-        del vr, vi
+    t0 = time.perf_counter()
+    vr, vi = jax.block_until_ready(pal(seh, sel, jnp.asarray(amps_np)))
+    timing["pallas"] = time.perf_counter() - t0
+    out["pallas"] = np.asarray(vr) + 1j * np.asarray(vi)
+    del vr, vi
 
     try:
         t0 = time.perf_counter()
@@ -237,14 +232,13 @@ def model_amps_df(prob, rank, diameter=14.0, chunk=65536):
     return hi, lo
 
 
-def run_pallas_truth(prob, sh, sl, bl_idx, nchan, rank, recur=None,
-                     anchor_q=8, anchor_w=None):
+def run_pallas_truth(prob, sh, sl, bl_idx, nchan, rank):
     """Direct Pallas kernel fed the TRUTH amps as a two-float pair —
     two kernel passes (the NUDFT is linear; the lo visibilities are
     ~60 ulp of the hi ones and add cleanly in complex128 on host).
     Expected error vs the f64 truth: the kernel's own transform floor
-    (8.8e-7 measured round 3) + the rank-r model convergence (~1.5e-7)
-    with the f32 amps chain eliminated."""
+    plus the rank-r model convergence, with the f32 amps chain
+    eliminated."""
     import jax
     import jax.numpy as jnp
     from prisim_tpu import twofloat as tf
@@ -261,9 +255,7 @@ def run_pallas_truth(prob, sh, sl, bl_idx, nchan, rank, recur=None,
 
     @functools.partial(jax.jit, donate_argnums=(2,))
     def pal(seh, sel, amps):
-        v = nudft_pallas(seh, sel, blh, bll, amps, gs, nchan,
-                         recur=recur, anchor_q=anchor_q,
-                         anchor_w=anchor_w)
+        v = nudft_pallas(seh, sel, blh, bll, amps, gs, nchan)
         return jnp.real(v), jnp.imag(v)
 
     t0 = time.perf_counter()
@@ -325,7 +317,7 @@ def _j1_asymptotic_over_x(x):
 
 def run_banded(prob, sh, sl, amps_np, bl_idx, nchan, ktaps=None,
                tile=None, gblk=None, rank=24, node_model=False,
-               truth=False, dot_split=1, beta=None):
+               truth=False, beta=None):
     """Banded-spread NUFFT engine on the baseline slice, full sources.
 
     The plan is built on the sliced vectors only — the banded engine is
@@ -345,8 +337,7 @@ def run_banded(prob, sh, sl, amps_np, bl_idx, nchan, ktaps=None,
     from prisim_tpu import twofloat as tf
     from prisim_tpu.engine import Instrument
     from prisim_tpu.engine.nufft_banded import (
-        banded_spread_available, make_banded_plan,
-        nufft_banded_visibilities)
+        make_banded_plan, nufft_banded_visibilities)
     from prisim_tpu.engine.nufft_delay import (chebyshev_projection,
                                                spectral_project)
 
@@ -357,11 +348,9 @@ def run_banded(prob, sh, sl, amps_np, bl_idx, nchan, ktaps=None,
                                latitude=inst.latitude)
     pinvQ, Q = chebyshev_projection(prob["freqs"], rank)
     kw = {k: v for k, v in
-          dict(K=ktaps, T_s=tile, G_blk=gblk,
-               dot_split=dot_split, beta=beta).items() if v}
+          dict(K=ktaps, T_s=tile, G_blk=gblk, beta=beta).items() if v}
     plan = make_banded_plan(bl64, inst_sl.nu0, inst_sl.dnu, nchan,
                             rank=rank, **kw)
-    interp = not banded_spread_available()
     pch, pcl = tf.split_f64(prob["pc"])
 
     if truth:
@@ -372,7 +361,7 @@ def run_banded(prob, sh, sl, amps_np, bl_idx, nchan, ktaps=None,
         from prisim_tpu.engine.nufft_banded import make_coeff_fn_truth
         from prisim_tpu.engine.nufft_banded import (_prep,
                                                     _banded_spread,
-                                                    _post)
+                                                    _payload_pad, _post)
         from prisim_tpu.beams.analytic import airy_beam_df
         cf = make_coeff_fn_truth(prob["freqs"], rank,
                                  lambda a, b, f:
@@ -391,13 +380,10 @@ def run_banded(prob, sh, sl, amps_np, bl_idx, nchan, ktaps=None,
                                  -jnp.asarray(pcl)[None, :])
             Ph, Pl = cf(sh, sl, fnh, fnl)
             u_h, u_l, P_r, ok = _prep(plan, seh, sel, Ph)
-            v = _post(plan, _banded_spread(plan, u_h, u_l, P_r,
-                                           interpret=interp),
-                      Q_j, matmul_fft=not interp)
-            Pl_r = jnp.transpose(jnp.asarray(Pl, jnp.float32))
-            v = v + _post(plan, _banded_spread(plan, u_h, u_l, Pl_r,
-                                               interpret=interp),
-                          Q_j, matmul_fft=not interp)
+            v = _post(plan, _banded_spread(plan, u_h, u_l, P_r), Q_j)
+            v = v + _post(plan, _banded_spread(plan, u_h, u_l,
+                                               _payload_pad(plan, Pl)),
+                          Q_j)
             return jnp.real(v), jnp.imag(v), ok
 
         t0 = time.perf_counter()
@@ -430,8 +416,7 @@ def run_banded(prob, sh, sl, amps_np, bl_idx, nchan, ktaps=None,
                               0.0)
             P = jnp.einsum("sn,nr->sr", ampsn,
                            jnp.asarray(nm.node2coef), precision=hi)
-            v, ok = nufft_banded_visibilities(plan, seh, sel, P, Q,
-                                              interpret=interp)
+            v, ok = nufft_banded_visibilities(plan, seh, sel, P, Q)
             return jnp.real(v), jnp.imag(v), ok
 
         t0 = time.perf_counter()
@@ -447,8 +432,7 @@ def run_banded(prob, sh, sl, amps_np, bl_idx, nchan, ktaps=None,
         seh, sel = tf.df_add(sh, sl, -jnp.asarray(pch)[None, :],
                              -jnp.asarray(pcl)[None, :])
         P = spectral_project(amps, pinvQ)
-        v, ok = nufft_banded_visibilities(plan, seh, sel, P, Q,
-                                          interpret=interp)
+        v, ok = nufft_banded_visibilities(plan, seh, sel, P, Q)
         return jnp.real(v), jnp.imag(v), ok
 
     t0 = time.perf_counter()
@@ -465,14 +449,9 @@ def main():
     ap.add_argument("--nside", type=int, default=256)
     ap.add_argument("--nchan", type=int, default=1024)
     ap.add_argument("--nbl-slice", type=int, default=8)
-    ap.add_argument("--recur", default=None, choices=["df", "rot"],
-                    help="Pallas grid-phasor mode (kernel default when "
-                         "omitted)")
     ap.add_argument("--banded", action="store_true",
                     help="also measure the banded-spread NUFFT engine")
     ap.add_argument("--banded-only", action="store_true")
-    ap.add_argument("--anchor-q", type=int, default=8)
-    ap.add_argument("--anchor-w", type=int, default=None)
     ap.add_argument("--banded-k", type=int, default=None)
     ap.add_argument("--banded-tile", type=int, default=None)
     ap.add_argument("--banded-gblk", type=int, default=None)
@@ -481,10 +460,6 @@ def main():
                     help="banded delay-grid oversampling (plan "
                          "default 2.0; edges of the deconvolved band "
                          "are where the KB correction is largest)")
-    ap.add_argument("--dot-split", type=int, default=1,
-                    help="split each in-kernel MXU dot's contraction "
-                         "into N Kahan-folded sub-dots (shrinks the "
-                         "in-dot f32 partial-sum rounding)")
     ap.add_argument("--node-model", action="store_true",
                     help="banded engine consumes the rank-r node "
                          "model (round-4 production form)")
@@ -514,24 +489,21 @@ def main():
         eng, timing = {}, {}
     else:
         eng, timing = run_engines(prob, sh, sl, amps_np, bl_idx,
-                                  args.nchan, recur=args.recur,
-                                  anchor_q=args.anchor_q,
-                                  anchor_w=args.anchor_w)
+                                  args.nchan)
     plan = None
     if args.pallas_truth:
         eng["pallas_truth"], timing["pallas_truth"] = run_pallas_truth(
-            prob, sh, sl, bl_idx, args.nchan, args.banded_rank,
-            recur=args.recur, anchor_q=args.anchor_q,
-            anchor_w=args.anchor_w)
+            prob, sh, sl, bl_idx, args.nchan, args.banded_rank)
     if args.banded or args.banded_only:
         eng["banded"], timing["banded"], plan = run_banded(
             prob, sh, sl, amps_np, bl_idx, args.nchan,
             ktaps=args.banded_k, tile=args.banded_tile,
             gblk=args.banded_gblk, rank=args.banded_rank,
             node_model=args.node_model, truth=args.truth_amps,
-            dot_split=args.dot_split, beta=args.beta)
+            beta=args.beta)
 
-    cache = "/tmp/acc_ns_golden%s_%d_%d_%d.npz" % (
+    cache = os.path.join(tempfile.gettempdir(),
+                         "acc_ns_golden%s_%d_%d_%d.npz") % (
         "64" if args.golden == "f64amps" else "",
         args.nside, args.nchan, args.nbl_slice)
     if os.path.exists(cache):
@@ -555,10 +527,6 @@ def main():
                            else None),
             "truth_amps": (args.truth_amps if name == "banded"
                            else None),
-            "recur": args.recur if name == "pallas" else None,
-            "anchors": ([args.anchor_q, args.anchor_w]
-                        if name == "pallas" and args.recur == "rot"
-                        else None),
             "rel_max_scaled": rel_max_scaled,
             "rel_elem_worst": rel_elem,
             "engine_seconds_incl_compile": timing[name],

@@ -1,10 +1,10 @@
-"""prisim_tpu — a TPU-native radio interferometer simulation framework.
+"""prisim_tpu — an accelerator-native radio interferometer simulation framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of PRISim
 (nithyanandan/PRISim): visibility simulation via non-uniform DFT over sky
 models with primary beams, instrument gains and thermal noise, plus delay
 spectrum / closure phase (bispectrum phase) analysis pipelines — designed
-for TPU meshes (shard_map/pjit) rather than MPI ranks.
+for device meshes (shard_map/pjit) rather than MPI ranks.
 
 Public entry points (lazy — importing prisim_tpu does not pull in jax):
 

@@ -11,9 +11,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import yaml
 
-from .config import load_parms
+from .config import load_parms, parse_yaml
 
 __all__ = ["pyuvsim_to_parms", "parms_to_pyuvsim"]
 
@@ -42,7 +41,7 @@ def pyuvsim_to_parms(obsparam_path):
     (location, layout csv)."""
     base = os.path.dirname(os.path.abspath(obsparam_path))
     with open(obsparam_path) as f:
-        obs = yaml.safe_load(f)
+        obs = parse_yaml(f.read())
     fr = obs.get("freq") or {}
     tm = obs.get("time") or {}
     tl = obs.get("telescope") or {}
@@ -62,7 +61,7 @@ def pyuvsim_to_parms(obsparam_path):
     tcfg_name = tl.get("telescope_config_name")
     if tcfg_name:
         with open(os.path.join(base, tcfg_name)) as f:
-            tcfg = yaml.safe_load(f)
+            tcfg = parse_yaml(f.read())
         loc = tcfg.get("telescope_location")
         if isinstance(loc, str):
             loc = [float(x) for x in
@@ -117,6 +116,7 @@ def parms_to_pyuvsim(parms, outdir):
                            "diameter": float(parms["antenna"].get(
                                "size") or 14.0)}},
     }
+    import yaml
     tcfg_path = os.path.join(outdir, "telescope_config.yaml")
     with open(tcfg_path, "w") as f:
         yaml.safe_dump(tcfg, f)

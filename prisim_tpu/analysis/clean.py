@@ -1,4 +1,4 @@
-"""Hogbom CLEAN for 1-D complex (delay-domain) spectra, batched on TPU.
+"""Hogbom CLEAN for 1-D complex (delay-domain) spectra, batched on device.
 
 Rebuild of ``complex1dClean`` (/root/reference/prisim/delay_spectrum.py:
 133-354) and ``DelaySpectrum.delayClean`` (:1622-1841). The reference
@@ -113,10 +113,9 @@ def batch_clean(specs, kernels, cboxes=None, gain=0.1, maxiter=100,
     specs, kernels: (..., n) complex; cboxes: (..., n) bool or None.
     Returns dict of stacked outputs (the reference's Pool fan-out,
     /root/reference/prisim/delay_spectrum.py:1748-1777)."""
-    from ..utils import get_complex, put_complex
-    specs = put_complex(np.asarray(specs, dtype=np.complex64))
+    specs = jnp.asarray(specs, dtype=jnp.complex64)
     kernels = jnp.broadcast_to(
-        put_complex(np.asarray(kernels, dtype=np.complex64)), specs.shape)
+        jnp.asarray(kernels, dtype=jnp.complex64), specs.shape)
     batch_shape = specs.shape[:-1]
     n = specs.shape[-1]
     flat_s = specs.reshape(-1, n)
@@ -133,7 +132,7 @@ def batch_clean(specs, kernels, cboxes=None, gain=0.1, maxiter=100,
             s, k, b, gain, maxiter, threshold, threshold_abs,
             use_box_stop=use_box_stop))
         out = fn(flat_s, flat_k, flat_b)
-    return {key: get_complex(val).reshape(
+    return {key: np.asarray(val).reshape(
         batch_shape + (() if val.ndim == 1 else (n,)))
         for key, val in out.items()}
 

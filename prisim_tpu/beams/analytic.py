@@ -21,6 +21,12 @@ import numpy as np
 from .. import constants as CNST
 
 
+def _hmm(a, b):
+    """a @ b at full f32 precision (an NVIDIA GPU's default may take
+    f32 products in TF32)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _j1_cheb_coeffs(deg=26):
     """Chebyshev coefficients of g(u) = J1(sqrt(u))/sqrt(u) on
     u in [0, 64] (t = u/32 - 1), fit in f64 at import time against the
@@ -44,7 +50,7 @@ _J1_CHEB = _j1_cheb_coeffs()
 
 
 def bessel_j1(x):
-    """Bessel J1, float32-clean on TPU (jax has no TPU-ready j1).
+    """Bessel J1, float32-clean on device (jax has no float32 j1).
 
     |x| < 8: J1(x) = x * g(x^2) with g a degree-26 Chebyshev fit on
     [0, 64], Clenshaw-evaluated — coefficients are O(0.1) so the f32
@@ -94,7 +100,7 @@ def _offaxis_sin(dircos, pointing_dircos=None):
         return sin_t, below
     p = jnp.asarray(pointing_dircos).reshape(3)
     p = p / jnp.linalg.norm(p)
-    cosang = jnp.clip(dircos @ p, -1.0, 1.0)
+    cosang = jnp.clip(_hmm(dircos, p), -1.0, 1.0)
     sinang = jnp.sqrt(jnp.clip(1.0 - cosang ** 2, 0.0, 1.0))
     below = jnp.logical_or(dircos[:, 2] < 0.0, cosang < 0.0)
     return sinang, below
@@ -168,7 +174,7 @@ def _df_clenshaw(th, tl, coeffs):
 
 def airy_beam_df(s_hi, s_lo, freqs, diameter, power=True):
     """Two-float32 Airy power pattern at static frequencies —
-    ~f64-accurate on TPU hardware (no float64 anywhere).
+    ~f64-accurate in float32 hardware (no float64 anywhere).
 
     The f32 `airy_beam` carries ~1-3e-7/element rounding whose
     incoherent sum over north-star source counts floors every
@@ -275,7 +281,7 @@ def dipole_beam(dircos, freqs, length, orientation_dircos=(1.0, 0.0, 0.0),
     d = jnp.asarray(np.asarray(orientation_dircos,
                                dtype=np.float32)).reshape(3)
     d = d / jnp.linalg.norm(d)
-    cosa = jnp.clip(dircos @ d, -1.0, 1.0)
+    cosa = jnp.clip(_hmm(dircos, d), -1.0, 1.0)
     sina = jnp.sqrt(jnp.clip(1.0 - cosa ** 2, 1e-12, 1.0))
     if short_dipole:
         pattern = jnp.broadcast_to(sina[:, None],
@@ -417,7 +423,7 @@ def array_field_pattern(element_pos, dircos, freqs, pointing_dircos=None,
     if delays is None:
         if pointing_dircos is not None:
             p = jnp.asarray(pointing_dircos).reshape(3)
-            delays = (element_pos @ p) / CNST.c
+            delays = _hmm(element_pos, p) / CNST.c
         else:
             delays = jnp.zeros(nant)
     else:
@@ -439,7 +445,7 @@ def array_field_pattern(element_pos, dircos, freqs, pointing_dircos=None,
         g = g * 10.0 ** ((gainerr_db / 10.0)
                          * jax.random.normal(sub, (nant, nrand)))
 
-    geom_delay = -(dircos @ element_pos.T) / CNST.c        # (nsrc, nant)
+    geom_delay = -_hmm(dircos, element_pos.T) / CNST.c     # (nsrc, nant)
     # phase: 2 pi nu (geom + delay) -> (nsrc, nant, nchan, nrand)
     tot = geom_delay[:, :, None, None] + d[None, :, None, :]
     phase = 2.0 * jnp.pi * freqs[None, None, :, None] * tot
@@ -500,7 +506,7 @@ def generic_aperture_field_pattern(aperture_locs, dircos, freqs,
     if delays is None:
         if pointing_dircos is not None:
             p = jnp.asarray(pointing_dircos).reshape(3)
-            delays = ((aperture_locs @ p) / CNST.c).reshape(nelem, 1)
+            delays = (_hmm(aperture_locs, p) / CNST.c).reshape(nelem, 1)
         else:
             delays = jnp.zeros((1, 1))
     else:
@@ -525,7 +531,7 @@ def generic_aperture_field_pattern(aperture_locs, dircos, freqs,
                                                      (nelem, 1, nrand)))
     nr = max(int(nrand), delays.shape[-1], gains.shape[-1])
 
-    geom_delay = -(dircos @ aperture_locs.T) / CNST.c      # (nsrc, nelem)
+    geom_delay = -_hmm(dircos, aperture_locs.T) / CNST.c   # (nsrc, nelem)
     # (nsrc, nelem, nchan, nrand)
     tot = geom_delay[:, :, None, None] + delays[None, :, :, :]
     phase = 2.0 * jnp.pi * freqs[None, None, :, None] * tot

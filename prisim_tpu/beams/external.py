@@ -111,9 +111,8 @@ class ExternalBeam:
         device-resident (npix, C) log table, weighted sum in log space,
         per-channel peak normalization, 10^. Row gathers move C
         contiguous floats per index — DMA-shaped, unlike the
-        per-element gathers that crawl on TPU (round-2 finding).
-        Replaces the per-snapshot host scipy loop (driver.py round-2,
-        VERDICT item 3)."""
+        per-element gathers.
+        Replaces a per-snapshot host scipy loop."""
         import jax.numpy as jnp
         rows = logtable[pix.reshape(-1)]              # (4S, C)
         rows = rows.reshape(pix.shape + (logtable.shape[1],))

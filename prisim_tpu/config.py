@@ -10,12 +10,12 @@ key-by-key up to 3 nesting levels; unknown keys are rejected."""
 from __future__ import annotations
 
 import copy
+import json
 import os
 import warnings
 
-import yaml
-
-__all__ = ["DEFAULT_PARMS", "load_parms", "merge_parms", "dump_parms"]
+__all__ = ["DEFAULT_PARMS", "load_parms", "merge_parms", "dump_parms",
+           "parse_yaml"]
 
 
 DEFAULT_PARMS = {
@@ -100,35 +100,26 @@ DEFAULT_PARMS = {
                    "src_block": 512, "use_pallas": "auto", "acc_chunk": None,
                    # nufft_rank None = bandwidth-aware auto (16 narrow
                    # band / 32 wide; driver.py). A hard default of 16
-                   # silently overrode the auto logic and put an
-                   # 8.4e-4 coherent octave-band fit error in every
-                   # banded north-star run (root-caused round 3)
-                   # 'auto' (round 5, production default): the gated
-                   # banded NUFFT on TPU — with truth amps it measures
-                   # 1.28e-6 vs the f64 truth at north-star scale
-                   # where the direct engines floor at 3.6-4.8e-6
-                   # (BASELINE.md round 5), at 23x the direct kernel's
-                   # speed; the shared-amps + model-residual gates
-                   # demote any degraded run. CPU backends (and
-                   # gradient/extended runs on any backend) keep the
-                   # direct engine. 'direct' opts out explicitly.
+                   # would override the auto logic and put a coherent
+                   # octave-band fit error in every wide-band run.
+                   # engine 'auto' = the direct engine; 'nufft' selects
+                   # the delay-space NUFFT (gradient/extended runs stay
+                   # direct).
                    "engine": "auto", "nufft_rank": None,
-                   # 'auto' = banded Pallas spread on TPU, sorted on
-                   # CPU backends (a hard 'sorted' default silently
-                   # kept TPU engine:nufft runs on the direct engine
-                   # via the honesty gate)
+                   # 'auto' = the sorted spread; 'banded' the banded
+                   # delay-grid spread (engine/nufft_banded.py)
                    "nufft_spread": "auto",
                    "nufft_crosscheck": True, "nufft_inflight": None,
                    # None = path-aware default: 2e-6 for the banded
                    # shared-amps gates (single-device and mesh),
                    # measured RELATIVE TO THE COHERENT FLUX SCALE
                    # max_c Σ_s|A_sc| — the invariant any f32 engine's
-                   # absolute error actually scales with (round 5,
-                   # probe_pc_bisect.py: max|V| denominators swing 87x
-                   # with the baseline set on diffuse skies while the
-                   # absolute error doesn't move); 1e-4 for
+                   # absolute error actually scales with (max|V|
+                   # denominators swing with the baseline set on
+                   # diffuse skies while the absolute error doesn't
+                   # move); 1e-4 for
                    # cross-program gates whose yardstick carries the
-                   # coherent beam-recompute term (BASELINE.md round 3)
+                   # coherent beam-recompute term
                    "nufft_crosscheck_tol": None,
                    # Banded engine spectral form (round 4): True =
                    # evaluate beam x flux at the rank Chebyshev nodes
@@ -151,13 +142,9 @@ DEFAULT_PARMS = {
                    # - true f32 amps| / max|amps| (healthy ~5e-7;
                    # rank-4-on-an-octave ~1e-1)
                    "nufft_resid_tol": 1e-4,
-                   # banded plan numerics knobs (None = the plan
-                   # defaults, engine/nufft_banded.make_banded_plan):
-                   # delay-grid oversampling beta and the in-kernel
-                   # Kahan dot split (round 5; band-edge deconvolution
-                   # amplification and in-dot partial-sum rounding are
-                   # the two measured f32-transform error terms)
-                   "nufft_beta": None, "nufft_dot_split": None},
+                   # banded plan delay-grid oversampling (None = the
+                   # plan default, engine/nufft_banded.make_banded_plan)
+                   "nufft_beta": None},
     "pp": {"key": "freq", "eqvol": True, "method": "pool",
            "mesh_axes": None, "n_chunks": 1},
     "flags": {"flag_chan": -1, "bp_flag_repeat": False,
@@ -176,10 +163,10 @@ DEFAULT_PARMS = {
 # Keys accepted for reference-YAML compatibility but deliberately inert
 # here, with the reason. The schema must tell the truth: load_parms
 # warns when a config sets one of these to a non-default value
-# (cf. VERDICT round-1 "silently-ignored config keys").
+# instead of silently ignoring it.
 NOOP_KEYS = {
     "processing.memsave":
-        "the TPU engine always runs the compensated-float32 path "
+        "the engine always runs the compensated-float32 path "
         "(<=1e-6 vs float64; there is no float64 mode to save memory "
         "from)",
     "processing.store_prev_sky":
@@ -259,16 +246,16 @@ def load_parms(source, use_builtin_defaults=True):
         custom = copy.deepcopy(source)
     elif isinstance(source, str) and os.path.exists(source):
         with open(source) as f:
-            custom = yaml.safe_load(f) or {}
+            custom = parse_yaml(f.read()) or {}
     elif isinstance(source, str):
-        custom = yaml.safe_load(source) or {}
+        custom = parse_yaml(source) or {}
     else:
         raise TypeError("source must be a path, YAML string, or dict")
     template = None
     preload = custom.get("preload") or {}
     if preload.get("template"):
         with open(preload["template"]) as f:
-            template = yaml.safe_load(f)
+            template = parse_yaml(f.read())
     elif use_builtin_defaults:
         template = DEFAULT_PARMS
     for msg in _noop_key_warnings(custom):
@@ -278,9 +265,25 @@ def load_parms(source, use_builtin_defaults=True):
     return merge_parms(template, custom)
 
 
+def parse_yaml(text):
+    """YAML text -> python objects. pyyaml is imported only here; JSON
+    text (what dump_parms writes, itself valid YAML) parses without
+    it."""
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(text)
+        except ValueError:
+            raise ImportError("pyyaml is needed to parse YAML that is not "
+                              "JSON") from None
+    return yaml.safe_load(text)
+
+
 def dump_parms(parms, path):
     """Write resolved parameters (metadata provenance, the reference's
-    simparms.yaml at run_prisim.py:2212-2220)."""
+    simparms.yaml at run_prisim.py:2212-2220) as JSON, which is valid
+    YAML: load_parms reads it back with or without pyyaml."""
     with open(path, "w") as f:
-        yaml.safe_dump(parms, f, default_flow_style=False,
-                       sort_keys=False)
+        json.dump(parms, f, indent=1)
+        f.write("\n")

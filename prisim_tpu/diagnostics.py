@@ -14,7 +14,8 @@ import json
 import threading
 import time
 
-__all__ = ["ResourceMonitor", "phase_timer"]
+__all__ = ["ResourceMonitor", "phase_timer", "dot_precisions",
+           "all_highest"]
 
 
 class ResourceMonitor:
@@ -86,3 +87,53 @@ def phase_timer(name, sink=None, verbose=True):
             sink.append((name, dt))
         if verbose:
             print("[prisim_tpu] %-24s %8.3f s" % (name, dt))
+
+
+def dot_precisions(fn, *args, **kwargs):
+    """Precision of every dot_general in fn's jaxpr, sub-jaxprs (scan,
+    while, cond, jit, custom-rule and kernel bodies) included.
+
+    Returns a list of (lhs dtype, precision config) pairs. An f32
+    contraction that does not carry Precision.HIGHEST may run in TF32
+    on an NVIDIA GPU (about three decimal digits)."""
+    import jax
+    from jax.extend import core
+
+    found = []
+
+    def sub_jaxprs(v):
+        if isinstance(v, core.ClosedJaxpr):
+            yield v.jaxpr
+        elif isinstance(v, core.Jaxpr):
+            yield v
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                yield from sub_jaxprs(x)
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                found.append((str(eqn.invars[0].aval.dtype),
+                              eqn.params.get("precision")))
+            for val in eqn.params.values():
+                for sj in sub_jaxprs(val):
+                    walk(sj)
+
+    walk(jax.make_jaxpr(fn)(*args, **kwargs).jaxpr)
+    return found
+
+
+def all_highest(precisions):
+    """True when every f32/complex64 contraction in a dot_precisions
+    list runs at Precision.HIGHEST on both operands."""
+    import jax
+    hi = jax.lax.Precision.HIGHEST
+    for dtype, prec in precisions:
+        if dtype not in ("float32", "complex64"):
+            continue
+        if prec is None:
+            return False
+        pair = prec if isinstance(prec, tuple) else (prec, prec)
+        if any(p != hi for p in pair):
+            return False
+    return True

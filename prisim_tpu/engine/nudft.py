@@ -2,7 +2,8 @@
 
 Computes V(b, nu_c) = sum_src A(src, c) * exp(-2 pi i nu_c (tau_src,b - tau_pc,b))
 — the hot loop of the reference's InterferometerArray.observe()
-(/root/reference/prisim/interferometry.py:6323-6376) — redesigned for TPU:
+(the reference's prisim/interferometry.py:6323-6376) — redesigned for
+float32 accelerators:
 
 * **Precision without float64.** The phase cycle count nu*(s.b)/c reaches
   ~1e3 cycles; float32 alone quantizes phase at ~1e-4 rad. All cycle
@@ -15,7 +16,9 @@ Computes V(b, nu_c) = sum_src A(src, c) * exp(-2 pi i nu_c (tau_src,b - tau_pc,b
   U[s,b,q] = e^{-2pi i (p0 + qL d)} and W[s,b,r] = e^{-2pi i (r d)} —
   O(S*B*(C/L + L)) sincos — and form the full phasor as one complex
   multiply per (s,b,c). For C=1024, L=32 that is a 16x cut in
-  transcendental work; the inner loop is pure VPU multiply-accumulate.
+  transcendental work; the inner loop is pure multiply-accumulate.
+  Every contraction runs at Precision.HIGHEST: at default precision an
+  NVIDIA GPU may take f32 products in TF32 (~1e-3 relative).
 
 * **Static shapes, scan-blocked sources.** Sources stream through in
   fixed-size blocks under lax.scan so the working set stays bounded and
@@ -24,8 +27,8 @@ Computes V(b, nu_c) = sum_src A(src, c) * exp(-2 pi i nu_c (tau_src,b - tau_pc,b
   gathers — no data-dependent shapes anywhere.
 
 The Pallas kernel in pallas_nudft.py implements the same factorization
-with explicit VMEM tiling; this module is the portable XLA path and the
-correctness reference for it.
+for point sources in registers; this module is the portable XLA path
+and the correctness reference for it.
 """
 
 from __future__ import annotations
@@ -110,7 +113,8 @@ def _source_block_vis(seh, sel, blh, bll, amps, g0h, g0l, gdh, gdl, Q, L,
         # (cf. /root/reference/prisim/interferometry.py:6257-6283):
         # w = exp(-0.5 (u_proj / sigma_src)^2),
         # u_proj = sqrt(|b|^2 - (s_sky.b)^2) / lambda_c.
-        ksky = jnp.einsum("sk,bk->sb", s_sky, blh)              # (S, B) ~f32
+        ksky = jnp.einsum("sk,bk->sb", s_sky, blh,
+                          precision=jax.lax.Precision.HIGHEST)   # (S, B)
         proj = jnp.sqrt(jnp.clip(bl_len[None, :] ** 2 - ksky ** 2, 0.0,
                                  None))                          # meters
         u_proj = proj[:, :, None] * inv_wl[None, None, :]       # (S,B,C)
@@ -128,21 +132,13 @@ def _source_block_vis(seh, sel, blh, bll, amps, g0h, g0l, gdh, gdl, Q, L,
             Ti = Ti * wq
         ur = Uc[:, :, q]
         ui = Us[:, :, q]
-        vr = jnp.einsum("sb,sbl->bl", ur, Tr) - \
-            jnp.einsum("sb,sbl->bl", ui, Ti)
-        vi = jnp.einsum("sb,sbl->bl", ur, Ti) + \
-            jnp.einsum("sb,sbl->bl", ui, Tr)
+        hi = jax.lax.Precision.HIGHEST
+        vr = jnp.einsum("sb,sbl->bl", ur, Tr, precision=hi) - \
+            jnp.einsum("sb,sbl->bl", ui, Ti, precision=hi)
+        vi = jnp.einsum("sb,sbl->bl", ur, Ti, precision=hi) + \
+            jnp.einsum("sb,sbl->bl", ui, Tr, precision=hi)
         if gradient:
             # G[k] = sum_s s_sky[k] * A * E  (cf. interferometry.py:6313-6343)
-            # precision=HIGHEST: unlike the vis reductions above (pure
-            # batched sums, lowered to the VPU), this contraction over
-            # s with a free k axis is a genuine matmul — on TPU it
-            # lowered to a DEFAULT-precision bf16 MXU pass and put a
-            # 5.6e-3 error in the XLA gradient planes (measured round
-            # 3, bench_gradext: the Pallas kernel's planes were
-            # bit-stable across kernel restructures; the yardstick
-            # moved)
-            hi = jax.lax.Precision.HIGHEST
             gr = jnp.einsum("sk,sb,sbl->kbl", s_sky, ur, Tr,
                             precision=hi) - \
                 jnp.einsum("sk,sb,sbl->kbl", s_sky, ui, Ti,

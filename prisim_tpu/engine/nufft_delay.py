@@ -21,31 +21,19 @@ layers (all validated in tests/test_nufft_delay.py):
     jittable f32 + two-float port (~3e-6, the engine accuracy class),
     matching `observe.simulate_snapshot` end-to-end at 3.2e-6.
   * `nufft_delay_visibilities_jax_gather` — SCATTER-FREE spreading
-    (sort + searchsorted + windowed gather, all TPU-native XLA ops),
-    matching the f64 reference at 2.8e-6; the TPU path.
-Not yet wired into the driver (round 2: window sizing, Pallas tuning of
-the gather spread, driver flag behind a cross-check vs the direct
-engine). On CPU the jax port runs ~16x faster than the direct XLA
-engine.
+    (sort + searchsorted + windowed gather, all plain XLA ops),
+    matching the f64 reference at 2.8e-6.
 
 Algorithm reference: standard gridding NUFFT (Dutt & Rokhlin 1993;
 finufft's kb design). The reference implementation evaluates the dense
 phase matrix instead (/root/reference/prisim/interferometry.py:
 6323-6343).
 
-KNOWN LIMITATION (measured, round 2 — see BASELINE.md/ROADMAP.md): on
-REAL TPU hardware the sorted spread's argsort / compensated cumsums /
-boundary gathers run at TPU gather/cross-lane-scan speeds:
-29.5 s/snapshot vs 0.26 s for the direct Pallas kernel at the bench
-shape. (The 1.1e-2 error first measured alongside it was NOT the
-spread: probing showed the spread itself at 4.8e-7 on TPU and the
-compensated cumsums exact — the error was the spectral projection
-matmul run at the TPU's default bf16 MXU precision, now forced to
-HIGHEST, plus a rank-16 Chebyshev fit over a full-octave band, now
-bandwidth-aware rank 24.) On CPU backends this engine is ~2e-6 and
-~16x the direct XLA engine. The driver's processing.nufft_crosscheck
-gate guards every run; the round-3 plan for TPU speed moves the
-spreading onto the MXU as a banded dense matrix.
+Every matmul runs at Precision.HIGHEST (at default precision an f32
+product may be taken at reduced precision — TF32 on an NVIDIA GPU), and
+the spectral rank is bandwidth-aware (a rank-16 Chebyshev fit over a
+full octave is not accurate enough). The driver's
+processing.nufft_crosscheck gate guards every run.
 """
 
 from __future__ import annotations
@@ -153,7 +141,7 @@ def nufft_delay_visibilities_spectral(tau, amps_sc, nu0, dnu, nchan,
         raise ValueError("amps_sc second axis must be nchan")
     if basis == "chebyshev":
         # FIXED basis in ln(nu): Q = chebvander rows, P = amps @ pinv(Q)
-        # — one matmul, no data-dependent SVD (jit/MXU-friendly; rank 8
+        # — one matmul, no data-dependent SVD (jit-friendly; rank 8
         # fits full-octave power laws at ~1e-7)
         freqs = nu0 + dnu * np.arange(C)
         x = np.log(freqs / freqs[C // 2])
@@ -185,9 +173,7 @@ def nufft_delay_visibilities_jax(tau_h, tau_l, amps, nu0, dnu, nchan,
     Returns (B, C) complex64. Phase-critical steps (the nu_mid carrier
     and the grid coordinate) run in two-float so the ~150-cycle phases
     keep ~1e-6 relative accuracy; kernel weights
-    and the FFT are plain f32. The spreading scatter is XLA's — correct
-    everywhere, fast on CPU; the Pallas bin-accumulate replaces it on
-    TPU in round 2 (ROADMAP)."""
+    and the FFT are plain f32. The spreading scatter is XLA's."""
     import jax
     import jax.numpy as jnp
     from jax.scipy.special import i0 as j_i0
@@ -315,12 +301,12 @@ def size_gather_window(tau, dnu, nchan, beta=2.0, K=13, margin=1.0):
 def nufft_delay_visibilities_jax_gather(tau_h, tau_l, amps, nu0, dnu,
                                         nchan, window=None, beta=2.0,
                                         K=13, alpha=None):
-    """Scatter-free (TPU-viable) variant of nufft_delay_visibilities_jax.
+    """Scatter-free variant of nufft_delay_visibilities_jax.
 
     Spreading by GATHER instead of scatter: per baseline, sources are
     sorted by delay bin; each grid bin reduces a fixed-width `window` of
-    the sorted stream located with searchsorted (the TPU gridding
-    pattern — dense windowed reductions, no scatter). `window` must
+    the sorted stream located with searchsorted (dense windowed
+    reductions, no scatter). `window` must
     bound the number of sources within +-K/2 bins of any bin
     (~K * (1 + S*beta*nchan_density)); undersizing silently drops
     sources, so size it on the host from the actual delays:
@@ -467,7 +453,7 @@ def nufft_delay_visibilities_jax_sorted(tau_h, tau_l, amps, nu0, dnu,
                                         nchan, beta=2.0, K=13,
                                         alpha=None, setup=None,
                                         chan0=None):
-    """Scatter-free, occupancy-INDEPENDENT spreading (the TPU path).
+    """Scatter-free, occupancy-INDEPENDENT spreading (the sorted spread).
 
     The gather variant's fixed window must bound the worst-case bin
     occupancy, which clustered delays blow up ~12x (ROADMAP; measured).
@@ -482,14 +468,14 @@ def nufft_delay_visibilities_jax_sorted(tau_h, tau_l, amps, nu0, dnu,
     — one argsort per (baseline, snapshot) (reusable across spectral
     ranks via `setup`), K cumsums of length S, K×n boundary gathers and
     K rolls per baseline: O(S·(log S + K) + n·K), with NO window bound
-    and no occupancy sensitivity. All ops are dense TPU-native XLA
-    (sort, cumsum, gather, roll, FFT).
+    and no occupancy sensitivity. All ops are dense XLA (sort, cumsum,
+    gather, roll, FFT).
 
     Cancellation note: the boundary difference subtracts two running
     f32 sums of magnitude ~sqrt(S)·amp (the carrier randomizes signs),
     so per-bin error is ~eps·sqrt(S)·amp — within the NUFFT engine's
-    ~3e-6 class at north-star source counts (measured in
-    tests/test_nufft_delay.py and benchmarks/bench_nufft_tpu.py).
+    ~3e-6 class at north-star source counts (checked in
+    tests/test_nufft_delay.py).
 
     setup: optional (order, starts) from _sorted_spread_setup(m0, n) to
     amortize the sort across ranks.
@@ -597,8 +583,8 @@ def nufft_delay_multirank_sorted(tau_h, tau_l, P, Qc, nu0, dnu, nchan,
     folding, the per-baseline argsort and boundary table, sorted
     gathers — is hoisted out of the rank loop, and both the spectral
     rank loop and the K-tap loop run under lax.scan (a static unroll of
-    rank x K cumsum stages produced an HLO large enough to crash the
-    TPU AOT compiler, and recomputed the carrier per rank).
+    rank x K cumsum stages produced a very large HLO, and recomputed the
+    carrier per rank).
 
     P: (S, r) spectral source coefficients; Qc: (C, r) basis columns.
     Returns (B, C) complex64."""
@@ -713,13 +699,13 @@ def chebyshev_basis_jit(freqs_f32, rank):
     Q = jnp.stack(cols, axis=1)                           # (C, r)
     # least-squares projector via QR: normal equations square the
     # Vandermonde conditioning and lose ~3 digits in f32 (measured
-    # 1.4e-3 engine error); QR keeps it at the f32 eps class. All
-    # products at HIGHEST precision: TPU matmuls default to bf16 MXU
-    # passes (~4e-3 relative).
+    # 1.4e-3 engine error); QR keeps it at the f32 eps class. The
+    # product at HIGHEST precision (an f32 matmul at default precision
+    # may run in TF32 on an NVIDIA GPU).
     import jax
-    with jax.default_matmul_precision("highest"):
-        q, r = jnp.linalg.qr(Q)
-        pinvQ = q @ jnp.linalg.inv(r).T                   # (C, r)
+    q, r = jnp.linalg.qr(Q)
+    pinvQ = jnp.matmul(q, jnp.linalg.inv(r).T,
+                       precision=jax.lax.Precision.HIGHEST)   # (C, r)
     return pinvQ, Q
 
 
@@ -805,8 +791,8 @@ def spectral_project(amps, pinvQ, block=128):
     products in f32: the ~sqrt(C)*eps rounding of each P entry is
     value-correlated across sources sharing a spectral family, so at
     north-star source counts it summed coherently into a ~1.8e-6
-    scaled visibility error that no spread/rank/tile knob could move
-    (round-3 error budget, BASELINE.md). Blocking the channel axis and
+    scaled visibility error that no spread/rank/tile knob could move.
+    Blocking the channel axis and
     Kahan-combining the per-block partials cuts the accumulation depth
     to `block` + exact cross-block compensation."""
     import jax
@@ -844,8 +830,8 @@ def simulate_snapshot_nufft_jit(instrument, sky, Mh, Ml, pch, pcl,
     no host round trip, so the whole accumulation fits in one jit (and
     under lax control flow for drift scans). Returns (B, C) complex64.
 
-    spread: 'sorted' (default; scatter-free, occupancy-independent —
-    the TPU path, with one argsort shared across all spectral ranks) or
+    spread: 'sorted' (default; scatter-free, occupancy-independent,
+    with one argsort shared across all spectral ranks) or
     'scatter' (XLA scatter-add; fast on CPU backends)."""
     import jax
     import jax.numpy as jnp
@@ -857,10 +843,10 @@ def simulate_snapshot_nufft_jit(instrument, sky, Mh, Ml, pch, pcl,
     seh, sel = tf.df_add(sh, sl, -pch[None, :], -pcl[None, :])
     freqs_f32 = jnp.asarray(instrument.freqs, dtype=jnp.float32)
     amps = _beam_and_flux(sh, sky.flux, freqs_f32, beam_fn, pc=pch)
-    # Blocked-Kahan projection (see spectral_project): plain bf16
-    # matmuls destroyed it on hardware (1e-2, round 2); a single
-    # HIGHEST matmul still cost ~1.8e-6 of f32 accumulation coherence
-    # at north-star source counts (round 3)
+    # Blocked-Kahan projection (see spectral_project): reduced-
+    # precision matmuls destroy it, and a single HIGHEST matmul still
+    # costs ~1.8e-6 of f32 accumulation coherence at north-star source
+    # counts
     P = spectral_project(amps, pinvQ)                         # (S, r)
     th, tl = delays_two_float(seh, sel, instrument.bl_hi,
                               instrument.bl_lo)

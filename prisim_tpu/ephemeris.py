@@ -3,7 +3,7 @@
 The reference leans on astropy for Time/LST/FK5 precession
 (/root/reference/scripts/run_prisim.py:660-736,
 /root/reference/prisim/interferometry.py:6174-6180). astropy is not part of
-this image, and TPU-side code must be pure anyway, so all ephemeris runs on
+this image, and device-side code must be pure anyway, so all ephemeris runs on
 the host in float64 numpy and only the resulting angles/rotations feed jit.
 
 Accuracy notes: GMST uses the IAU 1982 expression (sub-arcsecond over

@@ -30,10 +30,7 @@ from typing import Optional
 
 import numpy as np
 
-try:
-    import h5py
-except ImportError:                                   # pragma: no cover
-    h5py = None
+from .utils import require_h5py
 
 __all__ = ["GainTable", "GainInfo", "apply_gains"]
 
@@ -219,8 +216,7 @@ class GainInfo:
     def read_hdf5(cls, path):
         """Read the reference HDF5 gain-table schema
         (read_gaintable, /root/reference/prisim/interferometry.py:333)."""
-        if h5py is None:
-            raise ImportError("h5py required for gain tables")
+        h5py = require_h5py()
         tables = {}
         with h5py.File(path, "r") as f:
             for key in ("antenna-based", "baseline-based"):
@@ -245,8 +241,7 @@ class GainInfo:
     def write_hdf5(self, path):
         """Write in the reference schema (write_gaintable,
         /root/reference/prisim/interferometry.py:3767)."""
-        if h5py is None:
-            raise ImportError("h5py required for gain tables")
+        h5py = require_h5py()
         with h5py.File(path, "w") as f:
             for key, tab in (("antenna-based", self.antenna_based),
                              ("baseline-based", self.baseline_based)):

@@ -1,4 +1,4 @@
-"""Spherical/local coordinate conversions (TPU-first rebuild).
+"""Spherical/local coordinate conversions (accelerator-first rebuild).
 
 Replaces the reference's external ``astroutils.geometry`` dependency
 (imported at /root/reference/prisim/interferometry.py:18-25 and used
@@ -12,7 +12,7 @@ Conventions (matching the reference):
   * dircos: (l, m, n) direction cosines aligned with local (East, North, Up).
 
 Every function is written against an array namespace ``xp`` (jax.numpy by
-default) so the same math runs inside jit on TPU and in float64 numpy on the
+default) so the same math runs inside jit on device and in float64 numpy on the
 host for golden tests.
 """
 

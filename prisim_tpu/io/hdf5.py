@@ -12,10 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-try:
-    import h5py
-except ImportError:                                   # pragma: no cover
-    h5py = None
+from ..utils import require_h5py
 
 from .. import __version__
 from ..vis import VisibilitySet
@@ -41,8 +38,7 @@ def _dec_labels(structured):
 
 def save_hdf5(vs, path, overwrite=True):
     """Write a VisibilitySet in the reference HDF5 schema."""
-    if h5py is None:
-        raise ImportError("h5py required")
+    h5py = require_h5py()
     with h5py.File(path, "w" if overwrite else "w-") as f:
         hdr = f.create_group("header")
         hdr["PRISim#"] = "prisim_tpu-" + __version__
@@ -148,8 +144,7 @@ def load_hdf5(path):
     """Read a reference-schema HDF5 sim back into a VisibilitySet
     (counterpart of InterferometerArray.__init__(init_file=...),
     /root/reference/prisim/interferometry.py:5140)."""
-    if h5py is None:
-        raise ImportError("h5py required")
+    h5py = require_h5py()
     with h5py.File(path, "r") as f:
         labels = _dec_labels(f["array/labels"][()])
         layout = None

@@ -12,10 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-try:
-    import h5py
-except ImportError:                                   # pragma: no cover
-    h5py = None
+from ..utils import require_h5py
 
 from .. import geometry as geom
 from .uvfits import uvdata_arrays
@@ -37,8 +34,7 @@ def save_uvh5(vs, path, datatype="noiseless", vs_second=None,
     vs_cross: the simulated XY product (a VisibilitySet, or an
     (XY, YX) pair) from a beam.pol='full' Mueller run — cross-pols are
     then real data, unflagged, nsample=1 (beyond the reference)."""
-    if h5py is None:
-        raise ImportError("h5py required")
+    h5py = require_h5py()
     a = uvdata_arrays(vs, datatype)
     cubes = [a["data"]]
     if vs_second is not None:
@@ -155,8 +151,7 @@ def save_uvh5(vs, path, datatype="noiseless", vs_second=None,
 
 def read_uvh5_arrays(path):
     """Read back the key arrays of a UVH5 file (for tests/interop)."""
-    if h5py is None:
-        raise ImportError("h5py required")
+    h5py = require_h5py()
     with h5py.File(path, "r") as f:
         h = f["Header"]
         out = dict(

@@ -1,6 +1,6 @@
 """Antenna array layout generators and presets.
 
-TPU-first rebuild of the reference's layout machinery
+Accelerator-first rebuild of the reference's layout machinery
 (hexagon/rectangle/circular generators at
 /root/reference/prisim/interferometry.py:857-1183, presets + perturbations at
 :1686-1860). All host-side float64 numpy — this runs once per simulation.

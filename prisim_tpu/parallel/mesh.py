@@ -3,8 +3,8 @@
 The reference's MPI decompositions (/root/reference/scripts/run_prisim.py:
 1749-2210 — freq-axis chunks, baseline-axis chunks with static or
 work-stealing scheduling, source-axis split with a recv-sum reduce, and
-filesystem-based concatenation) collapse into jax shardings over one TPU
-mesh:
+filesystem-based concatenation) collapse into jax shardings over one
+device mesh:
 
   * bl/freq chunking  -> shard_map over mesh axes ('bl', 'chan'):
     embarrassingly parallel, no collectives until host gather at write-out;
@@ -67,7 +67,7 @@ def pad_to_multiple(arr, multiple, axis=0, value=0.0):
 
 def _drift_core(blh, bll, freqs_f32, flux, seqh, seql, Mh, Ml, pch, pcl,
                 grid_scalars, beam_fn, nchan_local, src_block, has_chan,
-                has_src, use_pallas=False, interpret=False):
+                has_src, use_pallas=False):
     """Per-shard drift scan: each device handles its local (bl, chan, src)
     block across all snapshots; lax.scan over time stays on-device."""
     chan0 = (jax.lax.axis_index("chan") * nchan_local) if has_chan else 0
@@ -81,8 +81,7 @@ def _drift_core(blh, bll, freqs_f32, flux, seqh, seql, Mh, Ml, pch, pcl,
         if use_pallas:
             from ..engine.pallas_nudft import nudft_pallas
             vis = nudft_pallas(seh, sel, blh, bll, amps, grid_scalars,
-                               nchan_local, chan0=chan0,
-                               interpret=interpret)
+                               nchan_local, chan0=chan0)
         else:
             vis = nudft_visibilities(seh, sel, blh, bll, amps,
                                      grid_scalars, nchan_local,
@@ -96,7 +95,7 @@ def _drift_core(blh, bll, freqs_f32, flux, seqh, seql, Mh, Ml, pch, pcl,
 
 
 def _sharded_drift(mesh, instrument, sky, observation, beam_fn, src_block,
-                   src_axis, use_pallas=False, interpret=False):
+                   src_axis, use_pallas=False):
     axis_sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     n_bl = axis_sizes.get("bl", 1)
     n_ch = axis_sizes.get("chan", 1)
@@ -142,7 +141,7 @@ def _sharded_drift(mesh, instrument, sky, observation, beam_fn, src_block,
     fn = functools.partial(_drift_core, grid_scalars=gs, beam_fn=beam_fn,
                            nchan_local=nchan_local, src_block=src_block,
                            has_chan=has_chan, has_src=has_src,
-                           use_pallas=use_pallas, interpret=interpret)
+                           use_pallas=use_pallas)
     mapped = jax.jit(shard_map(fn, mesh=mesh, in_specs=in_specs,
                                out_specs=out_specs, check_vma=False))
     vis = mapped(jnp.asarray(blh), jnp.asarray(bll),
@@ -258,11 +257,11 @@ def simulate_drift_nufft_sharded(instrument, sky, observation, beam_fn,
 
 
 def simulate_drift_banded_sharded(instrument, sky, observation, beam_fn,
-                                  mesh, rank=32, interpret=False,
+                                  mesh, rank=32,
                                   node_model=True, truth=None,
                                   plan_kw=None):
-    """Drift scan through the banded-spread NUFFT engine (the TPU-fast
-    path, engine/nufft_banded.py), sharded over the 'bl' mesh axis.
+    """Drift scan through the banded-spread NUFFT engine
+    (engine/nufft_banded.py), sharded over the 'bl' mesh axis.
 
     The banded plan is per-baseline-independent, so its per-baseline
     tables (block ranges, |b|, bin-offset ramp) shard cleanly along B
@@ -278,7 +277,7 @@ def simulate_drift_banded_sharded(instrument, sky, observation, beam_fn,
     import dataclasses
     from ..engine.nufft_banded import (make_banded_plan, _prep,
                                        _banded_spread, _post,
-                                       _payload_T, spatial_permutation,
+                                       _payload_pad, spatial_permutation,
                                        reorder_sources, make_coeff_fn)
     from ..engine.nufft_delay import chebyshev_projection
 
@@ -352,15 +351,11 @@ def simulate_drift_banded_sharded(instrument, sky, observation, beam_fn,
             else:
                 Pc = coeff_fn(sh, flux, ph)
             u_h, u_l, P_r, ok = _prep(lplan, seh, sel, Pc)
-            v = _post(lplan, _banded_spread(lplan, u_h, u_l, P_r,
-                                            interpret=interpret),
-                      Q_j, matmul_fft=not interpret)
+            v = _post(lplan, _banded_spread(lplan, u_h, u_l, P_r), Q_j)
             if truth is not None:
-                Pl_r = _payload_T(lplan, Pl2)
+                Pl_r = _payload_pad(lplan, Pl2)
                 v = v + _post(lplan,
-                              _banded_spread(lplan, u_h, u_l, Pl_r,
-                                             interpret=interpret),
-                              Q_j, matmul_fft=not interpret)
+                              _banded_spread(lplan, u_h, u_l, Pl_r), Q_j)
             return None, (v, ok)
 
         _, (vis, oks) = jax.lax.scan(step, None,
@@ -387,23 +382,20 @@ def simulate_drift_banded_sharded(instrument, sky, observation, beam_fn,
 
 
 def simulate_drift_sharded(instrument, sky, observation, beam_fn, mesh,
-                           src_block=512, use_pallas=False,
-                           interpret=False):
+                           src_block=512, use_pallas=False):
     """Drift scan sharded over ('bl', 'chan'). Returns (T, B, C) complex64
     with padded rows/cols stripped (result still device-sharded).
-    use_pallas routes each shard's NUDFT through the Pallas TPU kernel
-    (interpret=True for CPU-mesh testing)."""
+    use_pallas routes each shard's NUDFT through the Pallas kernel."""
     return _sharded_drift(mesh, instrument, sky, observation, beam_fn,
                           src_block, src_axis=False,
-                          use_pallas=use_pallas, interpret=interpret)
+                          use_pallas=use_pallas)
 
 
 def simulate_drift_src_sharded(instrument, sky, observation, beam_fn, mesh,
-                               src_block=512, use_pallas=False,
-                               interpret=False):
+                               src_block=512, use_pallas=False):
     """Drift scan with the *source* axis sharded and a psum reduce — the
-    TPU equivalent of the reference's pp.key='src' mode with its rank-0
+    mesh equivalent of the reference's pp.key='src' mode with its rank-0
     recv-sum (/root/reference/scripts/run_prisim.py:1845-1856)."""
     return _sharded_drift(mesh, instrument, sky, observation, beam_fn,
                           src_block, src_axis=True,
-                          use_pallas=use_pallas, interpret=interpret)
+                          use_pallas=use_pallas)

@@ -6,7 +6,7 @@ reference depends on (constructed in /root/reference/scripts/run_prisim.py:
 'spectrum', consumed by generate_spectrum(...interp_method='pchip') inside
 observe() at /root/reference/prisim/interferometry.py:6222-6249).
 
-TPU-first design note: spectra are *precomputed on the host* (float64,
+Design note: spectra are *precomputed on the host* (float64,
 pchip via scipy) into a dense (nsrc, nchan) array that lives on device,
 sharded along the channel axis — replacing the reference's per-snapshot
 spectrum generation + HDF5 "previous sky" cache

@@ -52,8 +52,8 @@ def test_deep_nesting_rejected():
 
 def test_noop_keys_warn_when_set():
     """Inert compatibility keys (NOOP_KEYS) warn when explicitly set to
-    a non-default value — the schema must not pretend they do something
-    (VERDICT round-1 item 10)."""
+    a non-default value — the schema must not pretend they do
+    something."""
     import warnings
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
@@ -366,7 +366,7 @@ def test_acc_chunked_scan_matches_full(tmp_path):
 
 def test_nufft_crosscheck_gate_falls_back(capsys):
     """A failing NUFFT/direct cross-check falls the WHOLE run back to
-    the direct engine (the safety gate that protects TPU runs where the
+    the direct engine (the safety gate that protects runs where the
     sorted spread underperforms; forced here with an impossible
     tolerance)."""
     base = {

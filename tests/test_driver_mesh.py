@@ -38,11 +38,12 @@ def test_driver_mesh_matches_reference_key(key, axes):
 
 
 @pytest.mark.parametrize("key", ["freq", "bl", "src"])
-def test_driver_mesh_pallas_matches_xla(key):
+def test_driver_mesh_pallas_matches_xla(key, pallas_interpreted):
     """processing.use_pallas=true on the CPU mesh routes each shard's
-    NUDFT through the Pallas kernel in interpret mode (the path a real
-    v5e-8 uses) and agrees with the XLA engine."""
+    NUDFT through the Pallas kernel (interpreted here; compiled on a
+    multi-GPU host) and agrees with the XLA engine."""
     parms = _parms(key)
+    parms["processing"]["use_pallas"] = False
     vs_xla, _ = run_simulation(parms, verbose=False, save=False)
     parms2 = _parms(key)
     parms2["processing"]["use_pallas"] = True

@@ -34,7 +34,7 @@ def _random_problem(S=300, B=64, C=128, bl_scale=500.0, seed=0,
     return s, bl, amps, freqs, pc
 
 
-def _run_tpu_path(s, bl, amps, freqs, pc, **kw):
+def _run_engine_path(s, bl, amps, freqs, pc, **kw):
     s_eff = s - pc[None, :]
     seh, sel = tf.split_f64(s_eff)
     blh, bll = tf.split_f64(bl)
@@ -56,7 +56,7 @@ def test_single_source_closed_form():
     freqs = 150e6 + 390625.0 * np.arange(C)
     amps = np.full((1, C), 2.5)
     pc = geom.altaz2dircos(np.array([[90.0, 0.0]]), xp=np)[0]
-    got = _run_tpu_path(s, bl, amps, freqs, pc)
+    got = _run_engine_path(s, bl, amps, freqs, pc)
     tau = ((s - pc) @ bl.T / CNST.c)[0]  # (B,)
     want = 2.5 * np.exp(-2j * np.pi * tau[:, None] * freqs[None, :])
     assert np.max(np.abs(got - want)) / 2.5 < 2e-6
@@ -67,7 +67,7 @@ def test_nudft_matches_f64_golden(bl_scale, C):
     # HERA-scale and long-baseline regimes; target <= ~1e-6 relative.
     s, bl, amps, freqs, pc = _random_problem(S=300, B=48, C=C,
                                              bl_scale=bl_scale)
-    got = _run_tpu_path(s, bl, amps, freqs, pc, src_block=128)
+    got = _run_engine_path(s, bl, amps, freqs, pc, src_block=128)
     want = nudft_reference_f64(s - pc[None, :], bl, amps, freqs)
     scale = np.sum(np.abs(amps), axis=0).max()  # worst-case coherent sum
     err = np.max(np.abs(got - want)) / scale
@@ -96,7 +96,7 @@ def test_nudft_extended_sources():
     fwhm_deg = rng.uniform(0.1, 1.0, 40)
     fwhm_dc = 2 * np.sin(0.5 * np.radians(fwhm_deg))
     sigma = (1.0 / (np.sqrt(2 * np.log(2)) * fwhm_dc)).astype(np.float32)
-    got = _run_tpu_path(
+    got = _run_engine_path(
         s, bl, amps, freqs, pc, src_block=64,
         src_shape_sigma=jnp.asarray(sigma),
         s_sky=jnp.asarray(s.astype(np.float32)),
@@ -109,7 +109,7 @@ def test_nudft_extended_sources():
 
 def test_nudft_gradient():
     s, bl, amps, freqs, pc = _random_problem(S=60, B=12, C=32)
-    got_v, got_g = _run_tpu_path(s, bl, amps, freqs, pc, src_block=64,
+    got_v, got_g = _run_engine_path(s, bl, amps, freqs, pc, src_block=64,
                                  gradient=True,
                                  s_sky=jnp.asarray(s.astype(np.float32)))
     want_v, want_g = nudft_reference_f64(s - pc[None, :], bl, amps, freqs,

@@ -23,8 +23,8 @@ FREQS = np.linspace(140e6, 160e6, 5)
 
 
 def test_generic_aperture_matches_array_field_pattern():
-    """MWA tile from aperture samples == array_field_pattern (the
-    VERDICT acceptance check): same isotropic radiators, same result."""
+    """MWA tile from aperture samples == array_field_pattern: same
+    isotropic radiators, same result."""
     pos = mwa_tile_positions()
     dc = _sky()
     af = np.asarray(array_field_pattern(pos, dc, FREQS))

@@ -1,5 +1,5 @@
-"""Banded-spread NUFFT (engine/nufft_banded.py): interpret-mode
-correctness vs the f64 NUFFT reference and the direct engine."""
+"""Banded-spread NUFFT (engine/nufft_banded.py): correctness of the
+XLA spread vs the f64 NUFFT reference and the direct engine."""
 
 import numpy as np
 import pytest
@@ -64,8 +64,7 @@ def test_banded_matches_f64_nufft_flat_spectrum():
     P = jnp.asarray(amps, jnp.float32)[:, None]
     Qc = np.ones((C, 1), np.float32)
     vis, ok = nufft_banded_visibilities(plan, jnp.asarray(seh),
-                                        jnp.asarray(sel), P, Qc,
-                                        interpret=True)
+                                        jnp.asarray(sel), P, Qc)
     assert bool(ok)
     vis = np.asarray(vis)
     scale = np.abs(gold).max()
@@ -95,8 +94,7 @@ def test_banded_multiblock_sweep():
         P = jnp.asarray(amps, jnp.float32)[:, None]
         Qc = np.ones((C, 1), np.float32)
         vis, ok = nufft_banded_visibilities(plan, jnp.asarray(seh),
-                                            jnp.asarray(sel), P, Qc,
-                                            interpret=True)
+                                            jnp.asarray(sel), P, Qc)
         assert bool(ok)
         rel = np.abs(np.asarray(vis) - gold).max() / np.abs(gold).max()
         assert rel < 5e-6, (K, rel)
@@ -104,15 +102,15 @@ def test_banded_multiblock_sweep():
 
 def test_banded_guards():
     """The block sweep is exact by construction for unit sources, so
-    the failure modes are (a) a plan whose per-baseline rows blow the
-    VMEM budget — a plan-time ValueError — and (b) non-unit source
+    the failure modes are (a) a plan whose row buffer exceeds its byte
+    budget — a plan-time ValueError — and (b) non-unit source
     vectors, which trip the runtime ok flag instead of silently
     aliasing bins outside the static block range."""
     S, C = 512, 64
     se, rng = _random_sources(S, seed=3)
     with pytest.raises(ValueError):
-        # ~300 km baseline: delay span >> any VMEM-resident row range
-        make_banded_plan(np.asarray([[3e5, 0.0, 0.0]]), 150e6, 100e3,
+        # ~3000 km baseline: a ~6 GB row buffer for one baseline
+        make_banded_plan(np.asarray([[3e6, 0.0, 0.0]]), 150e6, 100e3,
                          4096, rank=24)
     with pytest.raises(ValueError):
         make_banded_plan(np.asarray([[300.0, 0.0, 0.0]]), 150e6, 100e3,
@@ -123,8 +121,7 @@ def test_banded_guards():
     P = jnp.asarray(rng.uniform(0.1, 1.0, S), jnp.float32)[:, None]
     Qc = np.ones((C, 1), np.float32)
     vis, ok = nufft_banded_visibilities(plan, jnp.asarray(seh),
-                                        jnp.asarray(sel), P, Qc,
-                                        interpret=True)
+                                        jnp.asarray(sel), P, Qc)
     assert not bool(ok)
 
 
@@ -137,7 +134,6 @@ def test_banded_snapshot_vs_direct_engine():
                                    enu_rotation_from_eq)
     from prisim_tpu.engine.observe import simulate_snapshot
     from prisim_tpu.beams import airy_beam
-    from prisim_tpu.utils import get_complex
 
     C = 64
     freqs = 150e6 + 100e3 * np.arange(C)
@@ -157,7 +153,7 @@ def test_banded_snapshot_vs_direct_engine():
     pch, pcl = tf.split_f64(np.asarray([0.0, 0.0, 1.0]))
     beam_fn = lambda s, f: airy_beam(s, f, 14.0)
 
-    gold = np.asarray(get_complex(simulate_snapshot(
+    gold = np.asarray(np.asarray(simulate_snapshot(
         inst, sky, jnp.asarray(Mh), jnp.asarray(Ml), jnp.asarray(pch),
         jnp.asarray(pcl), beam_fn, src_block=512)))
 
@@ -167,7 +163,7 @@ def test_banded_snapshot_vs_direct_engine():
                             rank=rank, T_s=128)
     vis, ok = simulate_snapshot_nufft_banded(
         inst, sky, jnp.asarray(Mh), jnp.asarray(Ml), jnp.asarray(pch),
-        jnp.asarray(pcl), beam_fn, plan, pinvQ, Q, interpret=True)
+        jnp.asarray(pcl), beam_fn, plan, pinvQ, Q)
     assert bool(ok)
     vis = np.asarray(vis)
     scale = np.abs(gold).max()
@@ -217,7 +213,7 @@ def test_banded_spatial_sort_invariance():
     out = {}
     for flag in (True, False):
         run = make_banded_snapshot_fns(inst, sky, beam_fn, plan, pinvQ,
-                                       Q, interpret=True,
+                                       Q,
                                        spatial_sort=flag)
         v, ok = run(*args)
         assert bool(ok)
@@ -228,8 +224,8 @@ def test_banded_spatial_sort_invariance():
 
 
 def test_driver_banded_engine_end_to_end():
-    # processing.nufft_spread: banded routes through the Pallas spread
-    # (interpret mode off-TPU); the built-in cross-check gate validates
+    # processing.nufft_spread: banded routes through the banded spread;
+    # the built-in cross-check gate validates
     # snapshot 0 against the direct engine at 1e-4
     from prisim_tpu.config import load_parms
     from prisim_tpu.driver import run_simulation
@@ -259,22 +255,6 @@ def test_driver_banded_engine_end_to_end():
     gold = np.asarray(vs2.skyvis)
     rel = np.abs(vis - gold).max() / np.abs(gold).max()
     assert rel < 1e-4, rel
-
-
-def test_fft_matmul_matches_numpy():
-    """The 4-step matmul FFT (the precision-safe TPU post path)
-    matches np.fft.fft at the f32 floor, incl. a non-power-of-2 n with
-    a small cofactor (96 = 8 x 12)."""
-    import numpy as np
-    from prisim_tpu.engine.nufft_banded import _fft_matmul
-    rng = np.random.default_rng(3)
-    for n in (2048, 96, 61):        # 61 is prime -> builtin fallback
-        x = (rng.normal(size=(3, n, 5))
-             + 1j * rng.normal(size=(3, n, 5))).astype(np.complex64)
-        want = np.fft.fft(x.astype(np.complex128), axis=1)
-        got = np.asarray(_fft_matmul(x))
-        scale = np.abs(want).max()
-        assert np.abs(got - want).max() / scale < 2e-6, n
 
 
 def test_banded_source_chunked_sweep_matches_unchunked():
@@ -316,7 +296,7 @@ def test_banded_source_chunked_sweep_matches_unchunked():
     out = {}
     for chunk in (None, 128):
         run = make_banded_snapshot_fns(inst, sky, beam_fn, plan, pinvQ,
-                                       Q, interpret=True,
+                                       Q,
                                        src_chunk=chunk)
         v, ok = run(*args)
         assert bool(ok)

@@ -109,7 +109,6 @@ def test_nufft_snapshot_vs_direct_engine():
     from prisim_tpu.engine.observe import simulate_snapshot
     from prisim_tpu.engine.nufft_delay import simulate_snapshot_nufft
     from prisim_tpu.beams import airy_beam
-    from prisim_tpu.utils import get_complex
 
     layout = lay.preset_layout("HERA-7")
     bset = bls.build_baselines(layout, redundant=False)
@@ -122,7 +121,7 @@ def test_nufft_snapshot_vs_direct_engine():
     pch, pcl = tf.split_f64(np.array([0.0, 0.0, 1.0]))
     beam = lambda dc, f: airy_beam(dc, f, 14.0)
     args = [jnp.asarray(x) for x in (Mh, Ml, pch, pcl)]
-    V0 = get_complex(simulate_snapshot(inst, sky, *args, beam))
+    V0 = np.asarray(simulate_snapshot(inst, sky, *args, beam))
     V1 = simulate_snapshot_nufft(inst, sky, *args, beam)
     rel = np.abs(V1 - V0).max() / np.abs(V0).max()
     assert rel < 2e-5, rel
@@ -163,7 +162,7 @@ def test_nufft_jax_baseline_sharded():
 
 
 def test_nufft_gather_variant():
-    """Scatter-free gather-based spreading (the TPU-viable path)
+    """Scatter-free gather-based spreading
     matches the f64 reference; undersized window degrades measurably
     (guard against silent source drops going unnoticed)."""
     import jax
@@ -243,7 +242,7 @@ def test_gather_auto_window_sizing():
 
 
 def test_nufft_sorted_variant():
-    """Sorted segment-sum spreading (occupancy-independent TPU path;
+    """Sorted segment-sum spreading (occupancy-independent path;
     sort + compensated cumsum + boundary difference + polynomial tap
     weights) matches the f64 reference on CLUSTERED delays — the case
     whose worst-case occupancy blows up the gather window — at the

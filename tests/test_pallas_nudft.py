@@ -1,16 +1,17 @@
-"""Pallas NUDFT kernel vs XLA path and float64 golden (interpret mode —
-runs on the CPU mesh without TPU hardware)."""
+"""Pallas NUDFT kernel (Triton route) vs XLA path and float64 golden, in
+the Pallas interpreter — the kernel's arithmetic and wrapper (padding,
+tiling, channel offset) without a GPU."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
 from prisim_tpu import twofloat as tf
-from prisim_tpu import constants as CNST
 from prisim_tpu.engine.nudft import (nudft_visibilities,
                                      nudft_reference_f64,
                                      freq_grid_scalars)
-from prisim_tpu.engine.pallas_nudft import nudft_pallas
+from prisim_tpu.engine.pallas_nudft import (nudft_pallas, pallas_available,
+                                            _sincos_cycles)
 
 
 def _problem(S=100, B=37, C=48, seed=0):
@@ -35,7 +36,7 @@ def _problem(S=100, B=37, C=48, seed=0):
 def test_pallas_matches_f64_golden():
     seh, sel, blh, bll, amps, gs, C, se, bl, a_np, freqs = _problem()
     got = np.asarray(nudft_pallas(seh, sel, blh, bll, amps, gs, C,
-                                  src_tile=32, bl_tile=16,
+                                  bl_tile=8, chan_tile=16, src_chunk=32,
                                   interpret=True))
     want = nudft_reference_f64(se, bl, a_np, freqs)
     scale = np.abs(want).max()
@@ -47,7 +48,7 @@ def test_pallas_matches_xla_path():
     seh, sel, blh, bll, amps, gs, C, *_ = _problem(S=70, B=21, C=32,
                                                    seed=1)
     got = np.asarray(nudft_pallas(seh, sel, blh, bll, amps, gs, C,
-                                  src_tile=16, bl_tile=8,
+                                  bl_tile=4, src_chunk=16,
                                   interpret=True))
     ref = np.asarray(nudft_visibilities(seh, sel, blh, bll, amps, gs, C,
                                         src_block=32))
@@ -60,7 +61,7 @@ def test_pallas_ragged_sizes():
     seh, sel, blh, bll, amps, gs, C, se, bl, a_np, freqs = _problem(
         S=53, B=13, C=24, seed=2)
     got = np.asarray(nudft_pallas(seh, sel, blh, bll, amps, gs, C,
-                                  src_tile=16, bl_tile=8,
+                                  bl_tile=8, chan_tile=16, src_chunk=16,
                                   interpret=True))
     assert got.shape == (13, 24)
     want = nudft_reference_f64(se, bl, a_np, freqs)
@@ -75,134 +76,65 @@ def test_pallas_long_baseline_phase_wraps():
     blh, bll = tf.split_f64(bl)
     got = np.asarray(nudft_pallas(seh, sel, jnp.asarray(blh),
                                   jnp.asarray(bll), amps, gs, C,
-                                  src_tile=8, bl_tile=8,
+                                  bl_tile=8, src_chunk=8,
                                   interpret=True))
     want = nudft_reference_f64(se, bl, a_np, freqs)
     assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
 
 
-def test_pallas_amps_layouts_agree():
-    """Both amps staging layouts ('sl' fast / 'ls' memory-safe, chosen
-    automatically by problem size) produce the same visibilities."""
-    import jax.numpy as jnp
-    from prisim_tpu import twofloat as tf
-    from prisim_tpu.engine.nudft import (nudft_reference_f64,
-                                         freq_grid_scalars)
-    from prisim_tpu.engine.pallas_nudft import nudft_pallas
-    rng = np.random.RandomState(2)
-    S, B, C = 300, 10, 64
-    se = rng.uniform(-1, 1, (S, 3))
-    se /= np.linalg.norm(se, axis=1, keepdims=True)
-    se = se - np.array([0.0, 0.0, 1.0])
-    bl = rng.uniform(-250, 250, (B, 3))
-    a_np = rng.uniform(0.1, 10, (S, C)).astype(np.float32)
-    freqs = 100e6 + 97656.25 * np.arange(C)
-    gs = freq_grid_scalars(freqs[0], 97656.25)
-    seh, sel = tf.split_f64(se)
-    blh, bll = tf.split_f64(bl)
-    want = nudft_reference_f64(se, bl, a_np, freqs)
-    scale = np.abs(want).max()
-    outs = {}
-    for layout in ("sl", "ls"):
-        outs[layout] = np.asarray(nudft_pallas(
-            jnp.asarray(seh), jnp.asarray(sel), jnp.asarray(blh),
-            jnp.asarray(bll), jnp.asarray(a_np), gs, C,
-            amps_layout=layout, interpret=True))
-        assert np.abs(outs[layout] - want).max() / scale < 2e-6, layout
-    # identical math either way (layout only changes staging)
-    np.testing.assert_allclose(outs["sl"], outs["ls"], rtol=0,
-                               atol=2e-6 * scale)
+def test_pallas_channel_offset():
+    """chan0 (a channel shard's offset on the mesh) moves the kernel's
+    frequency grid: channels 40..63 of a 64-channel band, with baselines
+    long enough that the offset spans many phase cycles."""
+    seh, sel, blh, bll, amps, gs, C, se, bl, a_np, freqs = _problem(
+        S=64, B=9, C=64, seed=4)
+    bl = bl * 10.0
+    blh, bll = map(jnp.asarray, tf.split_f64(bl))
+    got = np.asarray(nudft_pallas(seh, sel, blh, bll, amps[:, 40:], gs,
+                                  24, chan0=40, src_chunk=16,
+                                  interpret=True))
+    want = nudft_reference_f64(se, bl, a_np[:, 40:], freqs[40:])
+    assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
 
 
-def test_pallas_gradient_matches_golden():
-    """In-kernel gradient planes vs XLA path and f64 golden (round 3)."""
-    rng = np.random.RandomState(5)
-    S, B, C = 60, 11, 32
-    s = rng.randn(S, 3)
-    s /= np.linalg.norm(s, axis=1, keepdims=True)
-    s[:, 2] = np.abs(s[:, 2])
-    se = s - np.array([0.0, 0.0, 1.0])
-    bl = rng.randn(B, 3) * 150.0
-    a_np = rng.rand(S, C).astype(np.float32)
-    freqs = 150e6 + 97656.25 * np.arange(C)
-    gs = freq_grid_scalars(freqs[0], 97656.25)
-    seh, sel = tf.split_f64(se)
-    blh, bll = tf.split_f64(bl)
-    args = (jnp.asarray(seh), jnp.asarray(sel), jnp.asarray(blh),
-            jnp.asarray(bll), jnp.asarray(a_np), gs, C)
-    vis_p, grad_p = nudft_pallas(*args, src_tile=16, bl_tile=8,
-                                 interpret=True,
-                                 s_sky=jnp.asarray(s, jnp.float32),
-                                 gradient=True)
-    vis_x, grad_x = nudft_visibilities(*args, s_sky=jnp.asarray(
-        s, jnp.float32), gradient=True, src_block=16)
-    want_v, want_g = nudft_reference_f64(se, bl, a_np, freqs, s_sky=s,
-                                         gradient=True)
-    sv = np.abs(want_v).max()
-    sg = np.abs(want_g).max()
-    assert np.abs(np.asarray(vis_p) - want_v).max() / sv < 2e-6
-    assert np.abs(np.asarray(grad_p) - want_g).max() / sg < 5e-6
-    assert np.abs(np.asarray(grad_p)
-                  - np.asarray(grad_x)).max() / sg < 5e-6
+def test_kernel_sincos_polynomial():
+    """The kernel's folded-Taylor (cos, sin) of 2 pi f over [-1/2, 1/2]
+    stays at the f32 rounding floor."""
+    f = np.linspace(-0.5, 0.5, 100001).astype(np.float32)
+    c, s = _sincos_cycles(jnp.asarray(f))
+    ang = 2.0 * np.pi * f.astype(np.float64)
+    assert np.abs(np.asarray(c) - np.cos(ang)).max() < 2e-7
+    assert np.abs(np.asarray(s) - np.sin(ang)).max() < 2e-7
 
 
-def test_pallas_extended_sources_matches_golden():
-    """In-kernel gaussian visibility weights vs XLA path / f64 golden."""
-    rng = np.random.RandomState(7)
-    S, B, C = 48, 9, 32
-    s = rng.randn(S, 3)
-    s /= np.linalg.norm(s, axis=1, keepdims=True)
-    s[:, 2] = np.abs(s[:, 2])
-    se = s - np.array([0.0, 0.0, 1.0])
-    bl = rng.randn(B, 3) * 120.0
-    a_np = rng.rand(S, C).astype(np.float32)
-    freqs = 150e6 + 97656.25 * np.arange(C)
-    gs = freq_grid_scalars(freqs[0], 97656.25)
-    # a mix of extended (finite sigma) and point (inf sigma) sources
-    sigma = rng.uniform(20.0, 200.0, S).astype(np.float32)
-    sigma[::3] = np.inf
-    seh, sel = tf.split_f64(se)
-    blh, bll = tf.split_f64(bl)
-    args = (jnp.asarray(seh), jnp.asarray(sel), jnp.asarray(blh),
-            jnp.asarray(bll), jnp.asarray(a_np), gs, C)
-    got = np.asarray(nudft_pallas(
-        *args, src_tile=16, bl_tile=8, interpret=True,
-        s_sky=jnp.asarray(s, jnp.float32),
-        src_shape_sigma=jnp.asarray(sigma)))
-    ref = np.asarray(nudft_visibilities(
-        *args, s_sky=jnp.asarray(s, jnp.float32),
-        src_shape_sigma=jnp.asarray(sigma),
-        inv_wl=jnp.asarray(freqs / CNST.c, jnp.float32), src_block=16))
-    want = nudft_reference_f64(se, bl, a_np, freqs, s_sky=s,
-                               src_shape_sigma=sigma)
-    scale = np.abs(want).max()
-    assert np.abs(got - want).max() / scale < 3e-6
-    assert np.abs(got - ref).max() / scale < 3e-6
+@pytest.mark.parametrize("platform,expected", [
+    ("gpu", True), ("cpu", False), ("METAL", False)])
+def test_pallas_available_per_platform(platform, expected):
+    assert pallas_available(platform) is expected
 
 
-def test_pallas_rot_recurrence_matches_golden():
-    """recur='rot' (anchored rotation recurrences, the round-3
-    throughput mode) stays in the engine accuracy class vs f64 and
-    agrees with recur='df' — including long wrapping baselines and a
-    non-divisible anchor layout (C=48 -> Q=8 with anchor_q=4)."""
-    for seed, C, blscale in ((0, 48, 200.0), (5, 64, 4000.0)):
-        seh, sel, blh, bll, amps, gs, C_, se, bl, a_np, freqs = \
-            _problem(S=96, B=17, C=C, seed=seed)
-        bl = bl * (blscale / 200.0)   # re-split AFTER scaling: scaling
-        blh, bll = map(jnp.asarray, tf.split_f64(bl))  # hi/lo parts
-        want = nudft_reference_f64(se, bl, a_np, freqs)  # breaks the
-        # two-float invariant (the hi rounding is lost) and is NOT a
-        # kernel error
-        got = np.asarray(nudft_pallas(seh, sel, blh, bll, amps, gs, C,
-                                      src_tile=16, bl_tile=8,
-                                      interpret=True, recur="rot",
-                                      anchor_q=4))
-        scale = np.abs(want).max()
-        assert np.abs(got - want).max() / scale < 2e-6
-        # W re-anchoring (anchor_w < WB, incl. a period that does not
-        # divide the r-block) changes only rounding, not values
-        got_aw = np.asarray(nudft_pallas(seh, sel, blh, bll, amps, gs,
-                                         C, src_tile=16, bl_tile=8,
-                                         interpret=True, recur="rot",
-                                         anchor_q=4, anchor_w=3))
-        assert np.abs(got_aw - want).max() / scale < 2e-6
+def test_compiled_kernel_refused_off_gpu():
+    """Without interpret=True the kernel compiles only for NVIDIA GPUs:
+    on the CPU it raises instead of falling back to the interpreter."""
+    seh, sel, blh, bll, amps, gs, C, *_ = _problem(S=8, B=2, C=8)
+    with pytest.raises(ValueError, match="NVIDIA"):
+        nudft_pallas(seh, sel, blh, bll, amps, gs, C)
+
+
+def test_driver_use_pallas_true_raises_off_gpu():
+    """processing.use_pallas: true where the kernel cannot compile is an
+    error, never a silent interpreter run; auto picks the XLA engine."""
+    from prisim_tpu.config import load_parms
+    from prisim_tpu.driver import _use_pallas, run_simulation
+    parms = load_parms({
+        "bandpass": {"nchan": 8, "freq": 150e6,
+                     "freq_resolution": 195312.5},
+        "array": {"layout": "HERA-7"},
+        "obsparm": {"n_acc": 1, "t_acc": 60.0},
+        "skyparm": {"model": "random", "nsrc": 8, "seed": 1},
+        "pp": {"key": "none"},
+        "processing": {"use_pallas": True}})
+    with pytest.raises(ValueError, match="use_pallas"):
+        run_simulation(parms, verbose=False, save=False)
+    parms["processing"]["use_pallas"] = "auto"
+    assert _use_pallas(parms) is False

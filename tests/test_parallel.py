@@ -71,7 +71,7 @@ def test_three_axis_mesh():
     assert np.max(np.abs(got - ref)) / scale < 1e-5
 
 
-def test_sharded_pallas_matches_xla_path():
+def test_sharded_pallas_matches_xla_path(pallas_interpreted):
     """Pallas kernel inside shard_map over a ('bl','chan') CPU mesh
     (interpret mode) must match the sharded XLA engine, exercising the
     chan0 channel-offset path of the kernel."""
@@ -97,8 +97,7 @@ def test_sharded_pallas_matches_xla_path():
     mesh = make_mesh(axis_names=("bl", "chan"), shape=(2, 4))
     ref = np.asarray(simulate_drift_sharded(inst, sky, obs, beam, mesh))
     got = np.asarray(simulate_drift_sharded(inst, sky, obs, beam, mesh,
-                                            use_pallas=True,
-                                            interpret=True))
+                                            use_pallas=True))
     scale = np.abs(ref).max()
     assert np.abs(got - ref).max() / scale < 5e-6
 
@@ -151,8 +150,8 @@ def test_nufft_sharded_matches_single_device():
 
 
 def test_banded_sharded_matches_single_device():
-    """simulate_drift_banded_sharded over a 'bl' mesh (the TPU-fast
-    engine's multi-chip decomposition) agrees with the direct engine at
+    """simulate_drift_banded_sharded over a 'bl' mesh (the banded
+    engine's multi-device decomposition) agrees with the direct engine at
     the engine accuracy class and rejects non-'bl' meshes. 21 baselines
     over 8 shards also exercises the padded-baseline trim."""
     from prisim_tpu.parallel.mesh import (make_mesh,
@@ -163,7 +162,7 @@ def test_banded_sharded_matches_single_device():
                                     src_block=64))
     mesh = make_mesh((8, 1), ("bl", "chan"))
     got, ok = simulate_drift_banded_sharded(inst, sky, obs, beam_fn,
-                                            mesh, interpret=True)
+                                            mesh)
     got = np.asarray(got)
     assert ok
     assert got.shape == ref.shape
@@ -172,5 +171,4 @@ def test_banded_sharded_matches_single_device():
 
     with pytest.raises(ValueError):
         simulate_drift_banded_sharded(
-            inst, sky, obs, beam_fn, make_mesh((1, 8), ("bl", "chan")),
-            interpret=True)
+            inst, sky, obs, beam_fn, make_mesh((1, 8), ("bl", "chan")))

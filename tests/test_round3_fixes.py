@@ -342,7 +342,7 @@ def test_feko_beam_drives_simulation(tmp_path):
 
 def test_mesh_bench_weak_scaling():
     """tools mesh-check --bench: fixed per-device work across mesh
-    sizes, per-device rates + efficiency reported (VERDICT r2 item 9)."""
+    sizes, per-device rates + efficiency reported."""
     from prisim_tpu.tools import mesh_bench
     rows = mesh_bench(n_devices=2, per_bl=4, nchan=8, nside=4,
                       repeats=1)

@@ -1,4 +1,4 @@
-"""Round-5 regression tests: in-dot Kahan split, gate diagnostics."""
+"""Round-5 regression tests: native FITS products, gate diagnostics."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -23,30 +23,6 @@ def _small_problem(seed=0, S=768, B=4, C=32, r=6):
     amps = rng.uniform(0.1, 1.0, (S, C)) * \
         (freqs[None] / 150e6) ** -0.8
     return bl, freqs, s, amps
-
-
-def test_dot_split_matches_plain_spread():
-    """dot_split splits the kernel MXU dot into Kahan-folded sub-dots;
-    it must reproduce the dot_split=1 result to f32 accumulation noise
-    (it REDUCES rounding, never changes the math)."""
-    bl, freqs, s, amps = _small_problem()
-    C = freqs.size
-    r = 6
-    sh, sl = tf.split_f64(s)
-    pinvQ, Q = chebyshev_projection(freqs, r)
-    P = spectral_project(jnp.asarray(amps, jnp.float32),
-                         jnp.asarray(pinvQ))
-    out = {}
-    for ds in (1, 4):
-        plan = make_banded_plan(bl, freqs[0], freqs[1] - freqs[0], C,
-                                rank=r, T_s=256, dot_split=ds)
-        v, ok = nufft_banded_visibilities(
-            plan, jnp.asarray(sh), jnp.asarray(sl), P, Q,
-            interpret=True)
-        assert bool(ok)
-        out[ds] = np.asarray(v)
-    scale = np.abs(out[1]).max()
-    assert np.abs(out[1] - out[4]).max() / scale < 2e-6
 
 
 def test_native_fits_roundtrip(tmp_path):
@@ -128,29 +104,11 @@ def test_native_fits_lag_products(tmp_path):
     assert back.vis_lag is None
 
 
-def test_dot_split_non_divisor_falls_back():
-    """A dot_split that does not divide T_s silently degrades to 1
-    (documented fallback, not an error)."""
-    bl, freqs, s, amps = _small_problem()
-    C = freqs.size
-    r = 6
-    sh, sl = tf.split_f64(s)
-    pinvQ, Q = chebyshev_projection(freqs, r)
-    P = spectral_project(jnp.asarray(amps, jnp.float32),
-                         jnp.asarray(pinvQ))
-    plan = make_banded_plan(bl, freqs[0], freqs[1] - freqs[0], C,
-                            rank=r, T_s=256, dot_split=7)
-    v, ok = nufft_banded_visibilities(
-        plan, jnp.asarray(sh), jnp.asarray(sl), P, Q, interpret=True)
-    assert bool(ok)
-    assert np.isfinite(np.asarray(v)).all()
-
-
 def test_gate_coherent_scale_normalization(capsys):
     """Round 5: the banded shared-amps gate normalizes by the coherent
     flux scale max_c Σ_s|A_sc| (>= max|V|), not by max|V| over the
     simulated rows — on diffuse pixelized skies the same absolute f32
-    error reads 10-100x larger against max|V| (probe_pc_bisect.py) and
+    error reads 10-100x larger against max|V| and
     would spuriously demote every such run. Asserts (a) the gate
     returns a coherent scale >= the direct side's |V| max, (b) a
     diffuse USM run whose max|V|-relative error exceeds 2e-6 still
